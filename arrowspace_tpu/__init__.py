@@ -1,17 +1,18 @@
-"""arrowspace-tpu: a TPU-native λτ spectral vector-search engine.
+"""arrowspace-tpu: a λτ spectral vector-search engine in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
-tuned-org-uk/arrowspace-rs (reference mounted at /root/reference): spectral
+A ground-up JAX/XLA re-design of the capabilities of
+tuned-org-uk/arrowspace-rs: spectral
 vector search that indexes a dense N×F matrix with one bounded scalar per
 item — the λτ ("taumode") synthetic index — derived from a Rayleigh
 quotient against a graph Laplacian plus an edgewise-dispersion term, and
 blends cosine similarity with λ proximity at query time.
 
-Architecture (TPU-first, not a port):
-- graphs are small dense device matrices; SpMV = MXU matmul;
-- the λτ batch is a fixed set of (N×n)(n×n) matmuls vmapped over items;
-- search is a batched normalized matmul + lax.top_k;
-- scaling is jax.sharding over an ICI mesh (see arrowspace_tpu.parallel);
+Architecture (accelerator-first, not a port):
+- graphs are small dense device matrices; SpMV = matmul;
+- the λτ batch is a fixed set of (N×n)(n×n) matmuls over all items;
+- search is a batched normalised matmul + lax.top_k, scanned in row
+  chunks past a bounded score plane;
+- scaling is jax.sharding over a device mesh (see arrowspace_tpu.parallel);
 - order-dependent clustering stays host-side with a C++ native kernel.
 """
 

@@ -1,10 +1,10 @@
 """Graph Laplacian container, factory, and spectral utilities.
 
-TPU-native re-design of the reference's graph module (reference:
+Accelerator re-design of the reference's graph module (reference:
 graph.rs:94-743).  The canonical λτ-graph is built over the **rows of a
 transposed centroid matrix** — i.e. the F′ feature signals — so the graph
 is tiny (F′ ≤ a few hundred nodes).  We therefore store the Laplacian as a
-small **dense** device matrix: SpMV becomes an MXU matmul and the whole λτ
+small **dense** device matrix: SpMV becomes a matmul and the whole λτ
 batch fuses into a few matmuls (see taumode.py).  ``nnz`` tracks the
 structural non-zero count of the equivalent CSR so sparsity statistics and
 checks match the reference (graph.rs:566-578).
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .config import HIGHEST
 from .utils.log import get_logger
 
 logger = get_logger("arrowspace.graph")
@@ -174,14 +175,16 @@ class GraphLaplacian:
         assert x.shape[0] == self.matrix.shape[0], (
             f"Vector length {x.shape[0]} must match matrix dim {self.matrix.shape[0]}")
         return np.asarray(jnp.dot(self.matrix, x,
-                                  preferred_element_type=self.matrix.dtype))
+                                  preferred_element_type=self.matrix.dtype,
+                                  precision=HIGHEST))
 
     def rayleigh_quotient(self, x) -> float:
         """R(L, x) = xᵀLx / xᵀx (reference: graph.rs:394-433)."""
         x = jnp.asarray(x, dtype=self.matrix.dtype)
-        lx = jnp.dot(self.matrix, x, preferred_element_type=self.matrix.dtype)
-        num = float(jnp.dot(x, lx))
-        den = float(jnp.dot(x, x))
+        lx = jnp.dot(self.matrix, x, preferred_element_type=self.matrix.dtype,
+                     precision=HIGHEST)
+        num = float(jnp.dot(x, lx, precision=HIGHEST))
+        den = float(jnp.dot(x, x, precision=HIGHEST))
         if den <= 1e-12:
             logger.warning("Zero vector encountered in Rayleigh quotient computation")
             return 0.0

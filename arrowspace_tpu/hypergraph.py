@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .config import HIGHEST
 from .graph import GraphLaplacian, GraphParams
 from .utils.log import get_logger
 
@@ -145,8 +146,7 @@ def ensemble_search_prebuilt(
     score.  Per-variant λ vectors are index state — build them once with
     build_ensemble and reuse across queries."""
     from .ops.search import lambda_aware_scores
-    from .taumode import (QUERY_PREP_PRECISION, select_tau,
-                          synthetic_lambda_single)
+    from .taumode import select_tau, synthetic_lambda_single
 
     query = np.asarray(query, dtype=np.float64)
     dt = aspace.data.dtype
@@ -162,8 +162,7 @@ def ensemble_search_prebuilt(
 
     total = jnp.zeros((aspace.nitems,), dtype=dt)
     for gl, lambdas in ensemble:
-        qlam = synthetic_lambda_single(q_prep_dev, gl.matrix, tau,
-                                       precision=QUERY_PREP_PRECISION)
+        qlam = synthetic_lambda_single(q_prep_dev, gl.matrix, tau)
         total = total + lambda_aware_scores(
             qdev[None, :], jnp.asarray([qlam], dtype=dt),
             aspace.data, lambdas, jnp.asarray(alpha, dtype=dt))[0]
@@ -179,17 +178,13 @@ def ensemble_query_lambdas(queries, ensemble, taumode) -> jax.Array:
     """Per-variant query-λ prep for ensemble_topk_batch: (B, F) raw
     queries -> (V, B) λ against each variant's Laplacian (the
     batched form of ensemble_search_prebuilt's per-variant prep;
-    graph.rs:142 + core.rs:533-549).  Runs at QUERY_PREP_PRECISION
-    like every other query-λ prep so fused results track the
-    per-query oracle on TPU — index-state prep, shared across
-    batches."""
-    from .taumode import (QUERY_PREP_PRECISION, select_tau_batch,
-                          synthetic_lambda_batch)
+    graph.rs:142 + core.rs:533-549), at Precision.HIGHEST like every
+    other λ prep — index-state prep, shared across batches."""
+    from .taumode import select_tau_batch, synthetic_lambda_batch
     dt = queries.dtype
     taus = select_tau_batch(queries, taumode)
     return jnp.stack([
-        synthetic_lambda_batch(queries, g.matrix.astype(dt), taus,
-                               precision=QUERY_PREP_PRECISION)
+        synthetic_lambda_batch(queries, g.matrix.astype(dt), taus)
         for g, _ in ensemble])
 
 
@@ -199,7 +194,7 @@ def ensemble_topk_batch(queries, qlams, items, item_lambdas_v, alpha, *,
     """Batched MEAN-SCORE ensemble fusion at corpus scale.
 
     queries (B, F) raw; qlams (V, B) per-variant query λ (use
-    ensemble_query_lambdas — QUERY_PREP_PRECISION prep against each
+    ensemble_query_lambdas — the standard query-λ prep against each
     variant's Laplacian, shared across batches); item_lambdas_v (V, N) the
     per-variant λ vectors from build_ensemble.  Fuses graph.rs:142's
     ensemble semantics exactly as ensemble_search_prebuilt does —
@@ -236,7 +231,8 @@ def ensemble_topk_batch(queries, qlams, items, item_lambdas_v, alpha, *,
         cs, ci = carry                       # (B, k), (B, k) running
         t, xb, lb = inp                      # (), (C, F), (V, C)
         xhat = _safe_unit(xb)
-        cos = jnp.dot(qhat, xhat.T, preferred_element_type=dt)  # (B, C)
+        cos = jnp.dot(qhat, xhat.T, preferred_element_type=dt,
+                      precision=HIGHEST)                    # (B, C)
         dl = jnp.zeros((b, chunk), dt)
         for j in range(v):                   # V is tiny and static
             dl = dl + jnp.minimum(

@@ -1,11 +1,27 @@
-"""Batched λ-aware search kernels.
+"""Batched λ-aware search.
 
 The reference scans all N items per query, computing
 α·cos(q, x_i) + (1-α)·(1 - min(|λ_q - λ_i|, 1)) and sorting
-(reference: core.rs:760-798).  On TPU this becomes one normalized matmul
-(Q̂ @ X̂ᵀ) on the MXU plus elementwise λ-proximity and ``lax.top_k`` —
-the per-thread-heap merge of the hybrid variant (core.rs:818-888) is
+(reference: core.rs:760-798).  Here that is one normalised matmul
+(Q̂ @ X̂ᵀ) plus elementwise λ-proximity and ``lax.top_k`` — the
+per-thread-heap merge of the hybrid variant (core.rs:818-888) is
 subsumed by a single fused top-k.
+
+Every full-scan path (the sessions, core.search_lambda_aware_batch, the
+live sessions and every mesh shard) scores through ONE step,
+``lambda_topk``.  When the (B, N) score plane fits SCORE_PLANE_BYTES it
+is materialised and reduced by one ``lax.top_k``; past the budget the
+corpus is scanned in fixed row chunks with a running top-k
+(``scan_topk``), so the working set stays O(B·chunk) at any N.
+
+Precision: f32 score dots run at ``lax.Precision.HIGHEST`` — without it
+an f32 matmul may run in TF32 on tensor-core GPUs, which keeps ~3
+decimal digits and would break the 1e-5 score contract.  The explicit
+``use_bf16`` option is the one accuracy-for-speed trade: the plane is
+scored with bf16 operands and f32 accumulation, and its top
+BF16_POOL·k candidates are rescored exactly (HIGHEST) before the final
+top-k — bf16 alone (~2^-9 relative) reorders clustered neighbours whose
+scores differ by ~1e-4.
 """
 
 from __future__ import annotations
@@ -16,70 +32,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["cosine_scores", "lambda_aware_scores",
-           "batched_lambda_aware_topk", "masked_lambda_aware_topk",
-           "rescore_topk_f64", "pallas_binned_topk_with_repair"]
+from ..config import HIGHEST, SCORE_PLANE_BYTES
 
+# bf16 screening pool: candidates per result slot rescored in f32.
+BF16_POOL = 4
 
-def pallas_binned_topk_with_repair(q, qlam, items, item_lambdas, alpha,
-                                   k: int, use_bf16: bool = False,
-                                   tile: int = 0, interpret: bool = False,
-                                   block_b: int = 0, lane_split: int = 0,
-                                   pre_reduce=None):
-    """Bin-accumulator streaming top-k + exact repair of flagged rows.
-
-    The binned kernel (ops/pallas_bintopk.py) is exact except when more
-    than `depth` true top-k elements collide in one bin; it flags those
-    queries (P ~ 2e-7 per query at k=10).  Flagged rows are repaired
-    through the strided-bin exact rescore (ops/bin_repair: only the
-    fired bins' rows + the current top-k are re-scored — ~0.3 ms of
-    gather+matmul at 1M×128 vs a ~4.4 ms full-corpus merge pass), with
-    the exact merge kernel as the fallback for fired-bin overflow, so
-    the combined result is always bit-identical to lax.top_k.  The flag
-    fetch synchronises the dispatch — callers on the async serving path
-    should use the session driver (index.stream_search), which overlaps
-    the fetch with the next batch's compute.
-    """
-    from .pallas_bintopk import binned_lambda_topk
-    s, i, fl, det = binned_lambda_topk(
-        q, qlam, items, item_lambdas, alpha, k=k, use_bf16=use_bf16,
-        tile=tile, interpret=interpret, block_b=block_b,
-        lane_split=lane_split, pre_reduce=pre_reduce, return_det=True)
-    flags = np.asarray(fl)
-    if flags.any():
-        from .bin_repair import strided_lambda_repair
-        from .pallas_topk import fused_lambda_topk
-        rows = np.nonzero(flags)[0]
-        s = np.asarray(s).copy()
-        i = np.asarray(i).copy()
-
-        def full_merge(rel_rows):
-            # power-of-two padded gather: one compiled program per
-            # bucket, not per flagged count (see bin_repair.padded_take)
-            rr = padded_take(rows[rel_rows])
-            rs, ri = fused_lambda_topk(q[rr], qlam[rr], items,
-                                       item_lambdas, alpha, k=k,
-                                       use_bf16=use_bf16, tile=tile,
-                                       interpret=interpret)
-            m = len(rel_rows)
-            return np.asarray(rs)[:m], np.asarray(ri)[:m]
-
-        # ONE fetch for the repair operands (det plane rows + kth); the
-        # gathers ride a power-of-two index bucket so one compiled
-        # gather serves any flag count (see bin_repair.padded_take)
-        from .bin_repair import padded_take
-        take = padded_take(rows)
-        det_rows, q_rows, ql_rows = jax.device_get(
-            (det[take], q[take], qlam[take]))
-        rs, ri = strided_lambda_repair(
-            q_rows[:len(rows)], ql_rows[:len(rows)],
-            det_rows[:len(rows)], s[rows, k - 1], i[rows],
-            items, item_lambdas, alpha, k=k, n=items.shape[0],
-            prepared=False, use_bf16=use_bf16, fallback=full_merge,
-            cur_scores=s[rows])
-        s[rows] = rs
-        i[rows] = ri
-    return s, i
+__all__ = ["cosine_scores", "lambda_aware_scores", "lambda_topk",
+           "batched_lambda_aware_topk", "scan_topk", "plane_chunk_rows",
+           "rescore_topk_f64"]
 
 
 def rescore_topk_f64(queries, query_lambdas, host_rows, item_lambdas,
@@ -127,76 +87,115 @@ def _safe_unit(rows: jax.Array) -> jax.Array:
     return jnp.where(norms > 0.0, rows / jnp.where(norms > 0.0, norms, 1.0), 0.0)
 
 
+def score_dot(q: jax.Array, x: jax.Array, use_bf16: bool = False
+              ) -> jax.Array:
+    """(B, F) x (N, F) -> (B, N) row dots, the one score-plane matmul.
+
+    f32/f64 operands run at Precision.HIGHEST (never TF32); use_bf16
+    casts both operands to bf16 and accumulates in f32."""
+    dims = (((1,), (1,)), ((), ()))
+    if use_bf16:
+        out = jax.lax.dot_general(
+            q.astype(jnp.bfloat16), x.astype(jnp.bfloat16), dims,
+            preferred_element_type=jnp.float32)
+        return out.astype(q.dtype)
+    return jax.lax.dot_general(q, x, dims, precision=HIGHEST,
+                               preferred_element_type=q.dtype)
+
+
 @jax.jit
 def cosine_scores(queries: jax.Array, items: jax.Array) -> jax.Array:
     """(B, F) x (N, F) -> (B, N) cosine similarity; zero vectors score 0
-    (reference: core.rs:229-239)."""
-    q = _safe_unit(queries)
-    x = _safe_unit(items)
-    return jnp.dot(q, x.T, preferred_element_type=queries.dtype)
+    (reference: core.rs:229-239).  Precision.HIGHEST."""
+    return score_dot(_safe_unit(queries), _safe_unit(items))
 
 
-def _pad_query_rows(b: int) -> int:
-    """Rows of zero-padding that lift a sub-16-row query block to a
-    matmul-shaped dot — TPU only (see _shifted_lambda_plane's docstring:
-    the CPU matvec is already column-uniform and the CPU blocked matmul
-    is NOT, so padding there breaks exact-duplicate tie order).
+def plane_chunk_rows(b: int, n: int, k: int,
+                     budget: int = SCORE_PLANE_BYTES) -> int:
+    """Rows per scan chunk for a (b, n) score plane: n itself when the
+    f32 plane fits `budget`, else the largest row count whose (b, rows)
+    plane does (never below k, so each chunk can supply k candidates)."""
+    if b * n * 4 <= budget:
+        return n
+    return min(n, max(k, budget // (4 * b)))
 
-    The device check honours jax.default_device: core.py's small-scan
-    fallback runs this plane on the HOST CPU backend of a TPU machine
-    (``with jax.default_device(cpu)``), where jax.default_backend()
-    still reports the accelerator — keying on the backend alone would
-    apply the TPU pad to the CPU matmul and break the tie order the
-    fallback exists to preserve."""
-    dev = jax.config.jax_default_device
-    platform = dev.platform if dev is not None else jax.default_backend()
-    if platform == "cpu":
-        return 0
-    return max(0, 16 - b)
+
+def scan_topk(score_rows, n: int, b: int, k: int, chunk: int, dtype,
+              n_live=None):
+    """Top-k over n corpus rows scored in chunks.
+
+    ``score_rows(start, rows)`` returns the (b, rows) scores of corpus
+    rows [start, start + rows).  With chunk >= n the plane is scored in
+    one piece and reduced by one ``lax.top_k``.  Otherwise a
+    ``lax.scan`` walks ceil(n / chunk) chunks of exactly `chunk` rows;
+    the last one is clamped to end at row n and masks the rows an
+    earlier chunk already covered, so no padded copy of the corpus is
+    ever made.  Each chunk's top-k merges into the running (b, k)
+    buffer, which is concatenated BEFORE the chunk's candidates — with
+    ``lax.top_k`` resolving exact ties to the lower position, equal
+    scores resolve to the lowest global index, as over the full plane.
+
+    ``n_live`` (traced int, optional) masks rows >= n_live to -inf: one
+    compiled program serves every live count of a capacity-padded
+    corpus.  Returns (scores (b, k), indices (b, k) int32)."""
+    neg_inf = jnp.asarray(-jnp.inf, dtype=dtype)
+    if chunk >= n:
+        sc = score_rows(0, n)
+        if n_live is not None:
+            sc = jnp.where(jnp.arange(n)[None, :] < n_live, sc, neg_inf)
+        s, i = jax.lax.top_k(sc, k)
+        return s, i.astype(jnp.int32)
+    assert k <= chunk < n, (k, chunk, n)
+    n_eff = n if n_live is None else n_live
+    iota = jnp.arange(chunk, dtype=jnp.int32)
+
+    def body(carry, c):
+        run_s, run_i = carry
+        lo = c * chunk
+        start = jnp.minimum(lo, n - chunk)
+        gidx = start + iota
+        sc = score_rows(start, chunk)
+        sc = jnp.where(((gidx >= lo) & (gidx < n_eff))[None, :], sc,
+                       neg_inf)
+        s_c, i_c = jax.lax.top_k(sc, k)
+        cs = jnp.concatenate([run_s, s_c], axis=1)          # (b, 2k)
+        ci = jnp.concatenate([run_i, i_c.astype(jnp.int32) + start],
+                             axis=1)
+        s2, pos = jax.lax.top_k(cs, k)
+        return (s2, jnp.take_along_axis(ci, pos, axis=1)), None
+
+    init = (jnp.full((b, k), neg_inf, dtype=dtype),
+            jnp.zeros((b, k), dtype=jnp.int32))
+    n_chunks = -(-n // chunk)
+    (s, i), _ = jax.lax.scan(body, init,
+                             jnp.arange(n_chunks, dtype=jnp.int32))
+    return s, i
 
 
 def _shifted_lambda_plane(queries, query_lambdas, items, item_lambdas,
-                          alpha):
-    """The canonical fma score arithmetic, SHIFTED by -c1 = -(1-α):
+                          alpha, use_bf16: bool = False):
+    """The canonical score arithmetic, SHIFTED by -c1 = -(1-α):
 
         s' = (α·q̂)·x̂ᵀ - c1·min(|Δλ|, 1)      (true score = s' + c1)
 
     α rides inside the prescaled query so the matmul emits α·cos in one
     pass; this is a rank-preserving reassociation of the reference
-    expression α·cos + (1-α)·(1-min(|Δλ|,1)) (core.rs:135-175) and is
-    byte-for-byte the arithmetic of the binned/merge Pallas kernels
-    (ops/pallas_bintopk, ops/pallas_topk), so kernel-vs-oracle id parity
-    is bitwise.  At α=1, c1=0 and the plane is exactly the f32 cosine.
-    Top-k callers sort on s' (the kernels sort pre-shift) and restore
-    +c1 on the returned scores only.
-
-    On TPU, sub-16-row batches are zero-padded to 16 query rows before
-    the dot and sliced back: TPU lowers a (1, F)x(F, N) dot as a MATVEC
-    whose rounding differs ~1e-4 from every matmul-shaped program
-    (measured, /tmp/prec_probe r4), which made single-query searches the
-    one API path whose scores could disagree with a serving session's.
-    The pad keeps the corpus stream identical and the extra query rows
-    are a rounding error in FLOPs.  The pad is TPU-ONLY (_pad_query_rows):
-    the CPU matvec already rounds uniformly per corpus column, while the
-    CPU blocked MATMUL does not — bitwise-identical corpus rows landing
-    in different SIMD remainder lanes round 1 ulp apart, flipping the
-    duplicate tie-order the reference pins (quora rows 1/14 in
-    tests/test_reference_parity.py; probed on f64: col14 = 1.0000000000000004
-    vs col1 = 0.9999999999999999 under the padded matmul, equal under
-    the matvec)."""
+    expression α·cos + (1-α)·(1-min(|Δλ|,1)) (core.rs:135-175).  At α=1,
+    c1=0 and the plane is exactly the cosine.  Top-k callers sort on s'
+    and restore +c1 on the returned scores only.  The dot is
+    ``score_dot`` (HIGHEST, or bf16 operands with f32 accumulation)."""
     a = jnp.asarray(alpha, queries.dtype)
     c1 = 1.0 - a
-    b = queries.shape[0]
-    pad = _pad_query_rows(b)
-    if pad:
-        queries = jnp.pad(queries, ((0, pad), (0, 0)))
-        query_lambdas = jnp.pad(query_lambdas, (0, pad))
-    q = _safe_unit(queries) * a
-    x = _safe_unit(items)
-    acos = jnp.dot(q, x.T, preferred_element_type=queries.dtype)
-    dl = jnp.abs(query_lambdas[:, None] - item_lambdas[None, :])
-    shifted = acos - c1 * jnp.minimum(dl, 1.0)
-    return (shifted[:b] if pad else shifted), c1
+    return _shifted_block(_safe_unit(queries) * a, query_lambdas, items,
+                          item_lambdas, c1, use_bf16), c1
+
+
+def _shifted_block(qa, query_lambdas, x, lam, c1, use_bf16=False):
+    """s' of prescaled queries qa = α·q̂ against rows x (see
+    _shifted_lambda_plane)."""
+    acos = score_dot(qa, _safe_unit(x), use_bf16)
+    dl = jnp.abs(query_lambdas[:, None] - lam[None, :])
+    return acos - c1 * jnp.minimum(dl, 1.0)
 
 
 @jax.jit
@@ -208,58 +207,78 @@ def lambda_aware_scores(
     alpha: jax.Array,          # scalar
 ) -> jax.Array:
     """score = α·cos + (1-α)·(1 - min(|Δλ|, 1))  (core.rs:135-175),
-    computed via the canonical fma form (see _shifted_lambda_plane) so
-    every XLA score plane matches the Pallas kernels' arithmetic."""
+    computed via the canonical shifted form (see _shifted_lambda_plane)
+    so every score plane shares one arithmetic."""
     shifted, c1 = _shifted_lambda_plane(queries, query_lambdas, items,
                                         item_lambdas, alpha)
     return shifted + c1
 
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def batched_lambda_aware_topk(
-    queries: jax.Array,
-    query_lambdas: jax.Array,
-    items: jax.Array,
-    item_lambdas: jax.Array,
-    alpha: jax.Array,
-    *,
-    k: int,
-):
-    """Fused scoring + top-k. Returns (scores (B,k), indices (B,k)).
-    Sorts on the SHIFTED plane (exactly what the binned kernel's flush
-    sorts) and restores +c1 afterwards, so ids AND scores are bitwise
-    vs binned_lambda_topk's unflagged rows."""
-    shifted, c1 = _shifted_lambda_plane(queries, query_lambdas, items,
-                                        item_lambdas, alpha)
-    s, i = jax.lax.top_k(shifted, k)
-    return s + c1, i
+def lambda_topk(queries, query_lambdas, items, item_lambdas, alpha, *,
+                k: int, n_live=None, use_bf16: bool = False,
+                chunk: int = 0):
+    """THE λ-aware top-k step (unjitted, so session steps, mesh shards
+    and the jitted wrapper below all trace the same code).
 
+    Sorts on the shifted plane (_shifted_lambda_plane) and restores +c1
+    on the returned scores.  The plane is bounded by SCORE_PLANE_BYTES
+    (chunk=0 derives the chunk from it; a positive chunk overrides it):
+    past the budget the corpus is scanned in row chunks by scan_topk, so
+    a B=2048 batch over 10M rows never materialises the 84 GB plane.
+    `n_live` masks the rows of a capacity-padded live corpus.  Ties
+    resolve to the lowest index.
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def masked_lambda_aware_topk(
-    queries: jax.Array,
-    query_lambdas: jax.Array,
-    items: jax.Array,          # (cap_pad, F) capacity-padded live corpus
-    item_lambdas: jax.Array,   # (cap_pad,)
-    alpha: jax.Array,
-    n_live: jax.Array,         # traced live row count
-    *,
-    k: int,
-):
-    """Live-corpus λ-aware top-k: `items` is CAPACITY-padded and only the
-    first n_live rows are real — positions past n_live are masked to -inf
-    before the top-k, so ONE compiled program serves every live count
-    (live.LiveSearchSession's small-corpus / CPU path).  Semantics over
-    the live prefix are identical to batched_lambda_aware_topk (scores,
-    lax.top_k tie order); the mask also kills any NaN the stale padded
-    rows might produce."""
-    shifted, c1 = _shifted_lambda_plane(queries, query_lambdas, items,
-                                        item_lambdas, alpha)
-    live = jnp.arange(items.shape[0])[None, :] < n_live
-    neg_inf = jnp.asarray(-jnp.inf, dtype=shifted.dtype)
-    s, i = jax.lax.top_k(jnp.where(live, shifted, neg_inf), k)
+    use_bf16 scores the plane with bf16 operands and f32 accumulation,
+    keeps its top BF16_POOL·k candidates, and rescores those exactly at
+    Precision.HIGHEST: returned scores are f32-exact, and the result
+    differs from the f32 path only where a true top-k row falls outside
+    the bf16 pool.  Returns (scores (B, k), ids (B, k))."""
+    b = queries.shape[0]
+    n, f = items.shape
+    dt = queries.dtype
+    a = jnp.asarray(alpha, dt)
+    c1 = 1.0 - a
+    qa = _safe_unit(queries) * a
+
+    def score_rows(start, rows):
+        if rows == n:
+            x, lam = items, item_lambdas
+        else:
+            x = jax.lax.dynamic_slice(items, (start, 0 * start),
+                                      (rows, f))
+            lam = jax.lax.dynamic_slice(item_lambdas, (start,), (rows,))
+        return _shifted_block(qa, query_lambdas, x, lam, c1, use_bf16)
+
+    k_scan = min(n, BF16_POOL * k) if use_bf16 else k
+    chunk = chunk or plane_chunk_rows(b, n, k_scan)
+    s, i = scan_topk(score_rows, n, b, k_scan, min(max(chunk, k_scan), n),
+                     dt, n_live=n_live)
+    if use_bf16:
+        s, i = _rescore_exact(qa, query_lambdas, items, item_lambdas, c1, i,
+                              k, n_live)
     # -inf masked slots (n_live < k) stay -inf through the restore
     return s + c1, i
+
+
+def _rescore_exact(qa, query_lambdas, items, item_lambdas, c1, cand, k,
+                   n_live):
+    """Exact shifted scores of candidate ids (B, m) at Precision.HIGHEST,
+    then the top k with ties to the lowest id (a two-key sort)."""
+    x = _safe_unit(items[cand])                          # (B, m, F)
+    acos = jnp.einsum("bf,bmf->bm", qa, x, precision=HIGHEST,
+                      preferred_element_type=qa.dtype)
+    dl = jnp.abs(query_lambdas[:, None] - item_lambdas[cand])
+    s = acos - c1 * jnp.minimum(dl, 1.0)
+    if n_live is not None:
+        s = jnp.where(cand < n_live, s, -jnp.inf)
+    neg, ids = jax.lax.sort((-s, cand), num_keys=2, dimension=1)
+    return -neg[:, :k], ids[:, :k]
+
+
+batched_lambda_aware_topk = jax.jit(
+    lambda_topk, static_argnames=("k", "use_bf16", "chunk"))
+batched_lambda_aware_topk.__doc__ = (
+    "Jitted lambda_topk: (B, F) queries -> (scores (B, k), ids (B, k)).")
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -300,9 +319,7 @@ def hybrid_search_device_fused(
     matches keep their cosine score, λ-top-k entries their blended
     score, the semantic top-1 its cosine — expressed as one effective
     score per item, so the final top-k is ONE lax.top_k and the host
-    fetches O(k) bytes instead of the full (N,) cosine array + Python
-    dict union (the round-2 host path cost ~4 MB + an O(N) loop per
-    query at 1M rows).
+    fetches O(k) bytes instead of the full (N,) cosine array.
 
     Precedence mirrors the host dict's insertion order: high-cos beats
     λ-top-k membership beats semantic-top-1; items in none of the three

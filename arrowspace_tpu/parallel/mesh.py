@@ -1,8 +1,8 @@
 """Device-mesh helpers.
 
 The reference's only parallelism is rayon shared-memory fan-out inside one
-process (SURVEY.md §2).  Its TPU-native replacement is an ICI mesh with the
-corpus axis N sharded across devices: build tiles, the λτ batch and query
+process (SURVEY.md §2).  Its replacement here is a 1-D device mesh with
+the corpus axis N sharded across devices: build tiles, the λτ batch and query
 scoring are data-parallel over N, and only the query top-k merge needs a
 collective (all_gather of per-shard candidates — the analogue of the
 reference's per-thread-heap merge at core.rs:865-888).
@@ -25,7 +25,8 @@ def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None,
               axis_name: str = ITEMS_AXIS) -> Mesh:
     """1-D mesh over the corpus axis.  Multi-host configs reshape this to
-    (dcn, ici) axes; single-slice stays 1-D so collectives ride ICI."""
+    ("dcn", "ici") axes — across hosts, within a host; one host stays
+    1-D (its devices reach each other at one rate)."""
     if devices is None:
         devices = jax.devices()
     if n_devices is not None:
@@ -44,10 +45,11 @@ def items_sharding(mesh: Mesh, axis_name: str = ITEMS_AXIS,
 
 def make_mesh_2d(dcn: int, ici: int,
                  devices: Optional[Sequence] = None) -> Mesh:
-    """(dcn, ici) mesh for multi-host corpora (the 100M×768 config in
-    BASELINE.json): the items axis is sharded over BOTH axes; collectives
-    are issued hierarchically so only k candidates per ICI group ever
-    cross the DCN."""
+    """("dcn", "ici") mesh for multi-host corpora (the 100M×768 config in
+    BASELINE.json): the outer axis spans hosts, the inner one a host's
+    devices; the items axis is sharded over BOTH, and collectives are
+    issued hierarchically so only k candidates per inner group ever
+    cross hosts."""
     if devices is None:
         devices = jax.devices()
     assert len(devices) >= dcn * ici, (

@@ -1,6 +1,6 @@
 """Johnson-Lindenstrauss random projection with implicit (seed-only) storage.
 
-TPU-native port of the reference's reduction module (reference:
+Accelerator port of the reference's reduction module (reference:
 reduction.rs:126-203).  The projection matrix is never stored: only
 (original_dim, reduced_dim, seed) — 8 bytes of seed — and the Gaussian
 matrix is regenerated deterministically on demand.  The reference uses a
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .config import default_dtype
+from .config import HIGHEST, default_dtype
 from .utils.log import get_logger
 
 logger = get_logger("arrowspace.reduction")
@@ -60,20 +60,11 @@ class ImplicitProjection:
         """Host copy of the regenerated matrix, cached: the matrix is a
         pure function of the 8-byte seed (the reference regenerates it on
         every projection; caching is observationally identical and avoids
-        an accelerator round trip per query)."""
+        a device round trip per query)."""
         cached = getattr(self, "_host_matrix_cache", None)
         if cached is None:
-            try:
-                cpu = jax.local_devices(backend="cpu")[0]
-            except RuntimeError:
-                cpu = None
-            if cpu is not None and jax.default_backend() != "cpu":
-                with jax.default_device(cpu):
-                    cached = np.asarray(self.matrix(dtype=jnp.float32),
-                                        dtype=np.float64)
-            else:
-                cached = np.asarray(self.matrix(dtype=jnp.float32),
-                                    dtype=np.float64)
+            cached = np.asarray(self.matrix(dtype=jnp.float32),
+                                dtype=np.float64)
             self._host_matrix_cache = cached
         return cached
 
@@ -90,9 +81,11 @@ class ImplicitProjection:
         return rows[:, : self.original_dim] @ self._host_matrix()
 
     def project_device(self, rows: jax.Array) -> jax.Array:
-        """Batched device-side projection: (N, F) @ (F, r) on the MXU."""
+        """Batched device-side projection: (N, F) @ (F, r), at
+        Precision.HIGHEST."""
         p = self.matrix(dtype=rows.dtype)
-        return jnp.dot(rows, p, preferred_element_type=rows.dtype)
+        return jnp.dot(rows, p, preferred_element_type=rows.dtype,
+                       precision=HIGHEST)
 
 
 def project_matrix(data, projection: ImplicitProjection) -> jax.Array:

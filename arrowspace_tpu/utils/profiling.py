@@ -23,7 +23,7 @@ __all__ = ["device_trace", "annotate", "log_lambda_statistics"]
 
 @contextlib.contextmanager
 def device_trace(logdir: str = "/tmp/arrowspace_trace"):
-    """Capture a jax.profiler trace around a block (TPU timeline, HLO
+    """Capture a jax.profiler trace around a block (device timeline, HLO
     cost breakdown).  Inspect with `xprof --logdir=...`."""
     os.makedirs(logdir, exist_ok=True)
     jax.profiler.start_trace(logdir)

@@ -12,15 +12,14 @@ SIFT1M/GloVe cannot be downloaded (zero egress), so the sweep covers:
   - anisotropic    : variance concentrated in a few directions
                      (condition number ~1e3), the spectral worst case
   - duplicate_heavy: 30% of rows are exact duplicates of a small pool —
-                     tie-ordering stress (and a deep-bin-collision storm
-                     for the binned kernel's flag/repair path)
+                     tie-ordering stress
   - heavy_tailed   : log-normal row norms spanning ~4 decades
 
 Per family: recall@10/@100 of the λ-blend vs flat cosine at several α
 (the index stores the raw vectors + one λ scalar per row — memory parity
-with a flat index up to (N+1)/N), an α=1≡cosine exactness assert THROUGH
-THE PRODUCTION KERNEL (the binned streaming kernel incl. its repair
-path on TPU), and the f64_rescore exact-order@10 assert.
+with a flat index up to (N+1)/N), an exactness assert of the production
+search path (ArrowSpace.search_lambda_aware_batch) against the jitted
+step, and the f64_rescore exact-order@10 assert.
 
 Usage: python benchmarks/recall_bench.py [N] (default 100_000)
 """
@@ -145,10 +144,9 @@ def run_family(name: str, make, n: int, results: list) -> None:
         print(f"[{name}] {alpha:>6.2f} {r10:>10.3f} {r100:>11.3f}",
               file=sys.stderr, flush=True)
 
-    # Production-kernel exactness at scale: the auto-dispatched kernel
-    # (binned streaming + repair on TPU at n >= 65536) must match the
-    # XLA oracle EXACTLY — duplicate_heavy makes this a deep-collision
-    # flag storm, the hardest case for the repair path.
+    # Production-path exactness at scale: the public batched search must
+    # match the jitted step EXACTLY — duplicate_heavy makes this a tie
+    # storm.
     s_prod, i_prod = aspace.search_lambda_aware_batch(
         queries, np.asarray(qlam), 10, 0.9)
     _, i_oracle = batched_lambda_aware_topk(

@@ -1,7 +1,7 @@
 """Production serving loop: compiled pipelined streaming + exact rescoring.
 
 No reference analogue (the reference has no serving runtime); this shows
-the TPU-deployment shape of the engine:
+the deployment shape of the engine:
 
 0. warm the machine at deploy time: config.setup_cache() + an AOT
    precompile of every device program the corpus shape needs (the
@@ -12,10 +12,9 @@ the TPU-deployment shape of the engine:
    (projection, τ, synthetic λ) with scoring + top-k, and the stream
    driver keeps two batches in flight so result readback overlaps the
    next batch's compute;
-3. serve a stream of query batches at sustained throughput — on TPU,
-   precision="bf16" scores in bf16 with f32 accumulation (top-10
-   overlap 1.000; ≈ f32 at F=128 where the fold, not the MXU, is the
-   clock — measured r4 — and a real ~15% at F=768);
+3. serve a stream of query batches at sustained throughput;
+   precision="bf16" screens the plane with bf16 operands and f32
+   accumulation and rescores its candidate pool exactly;
 4. use precision="f64_rescore" when exact f64 tie ordering matters
    (recall@10 = 1.000 vs an f64 brute force on clustered data).
 """
@@ -69,11 +68,10 @@ def main():
           f"({served / dt:.0f} QPS sustained, {dt / n_batches * 1e3:.1f} "
           f"ms/batch pipelined)")
 
-    # spot-check vs the one-shot API.  On TPU the session prepares query
-    # λ in f32 on-device while the one-shot path routes small batches to
-    # the f64 host engine, so near-tie ranks can flip — require top-1
-    # identity and high top-10 overlap (exact equality holds on the
-    # CPU/f64 backend, pinned by tests/test_index.py).
+    # spot-check vs the one-shot API: the session's fused program and
+    # the one-shot path round f32 near-ties independently, so require
+    # top-1 identity and high top-10 overlap (exact equality holds on
+    # the CPU/f64 backend, pinned by tests/test_index.py).
     s_ref, i_ref = idx.search(batches[0], k=10, alpha=0.9)
     s_got, i_got = next(iter(sess.search_stream(batches[:1])))
     assert (i_got[:, 0] == i_ref[:, 0]).all()
@@ -93,8 +91,7 @@ def main():
     print("f64_rescore matches the f64 brute-force ranking exactly: OK")
 
     # energy indices serve through the same pipelined loop: one fused
-    # prep+z-project+score+top-k program per batch (bin-accumulator
-    # kernel past the in-memory ceiling, flagged rows repaired exactly)
+    # prep+z-project+score+top-k program per batch
     from arrowspace_tpu.energymaps import EnergyParams
     t0 = time.perf_counter()
     # allow_tall_graphs: the diffusion split can mint more sub-centroids

@@ -3,7 +3,7 @@ recompiles.
 
 No reference analogue (the reference's ArrowSpace is mutable —
 core.rs:614-727 — but has no serving runtime around it); this shows the
-TPU-deployment shape of a MUTABLE index:
+deployment shape of a MUTABLE index:
 
 1. build an index once, open a LiveSearchSession sized for the
    deployment's ceiling (capacity) — the corpus lives in a
@@ -46,8 +46,7 @@ def main():
     live = idx.make_live_session(batch_size=64, k=10, alpha=0.9,
                                  capacity=32_000)
     live.warmup()
-    print(f"live session: capacity {live.capacity} "
-          f"(kernel={live._kernel}), n={live.nitems}")
+    print(f"live session: capacity {live.capacity}, n={live.nitems}")
 
     # -- ingest a fresh batch of vectors -------------------------------
     fresh = centers[rng.integers(0, 32, 500)] + rng.normal(

@@ -1,17 +1,16 @@
-"""Multi-process (multi-host / DCN) build and serving.
+"""Multi-process (multi-host) build and serving.
 
 No reference analogue — the reference (arrowspace-rs) is strictly
 single-process (its only parallelism is rayon shared-memory fan-out);
 this layer exists for corpora that exceed one host, e.g. the
-100M x 768 / v5p-16 target (SURVEY.md section 5).
+100M x 768 target (SURVEY.md section 5).
 
 The execution model (parallel/multiprocess.py):
 
 1. ONE driver process per host calls ``init_distributed(coordinator,
    num_processes, process_id)``; after that, ``jax.devices()`` is the
    GLOBAL device list and every jitted program in the package runs
-   SPMD across hosts (XLA collectives on ICI within a slice, DCN
-   between slices).
+   SPMD across hosts (XLA collectives within and between hosts).
 2. Each host ingests ONLY its row slice (``local_row_range`` +
    ``make_sharded_corpus``) — no host ever materialises the full
    corpus (~300 GB at 100M x 768).
@@ -19,9 +18,10 @@ The execution model (parallel/multiprocess.py):
    rules to bit-identical replicated reductions and stay in lockstep
    with no coordination beyond jax.distributed itself.
 4. Serving sessions (DistributedSearchSession / the energy variant)
-   work unchanged: per-shard top-k + a DCN-frugal hierarchical merge.
+   work unchanged: per-shard top-k + a hierarchical merge that sends
+   only k candidates per host across hosts.
 
-On a real pod you run this file once per host with the coordinator
+On a real cluster you run this file once per host with the coordinator
 address and process id set by your launcher.  This demo instead runs
 the whole thing on THIS machine: it spawns 2 localhost worker
 processes x 4 virtual CPU devices each (gloo collectives) through the

@@ -1,7 +1,7 @@
 """Low-latency exact serving: the cell-screened (pruned) session.
 
 No reference analogue (the reference full-scans every query,
-core.rs:760-798); this is the TPU-native latency path on top of the
+core.rs:760-798); this is the low-latency path on top of the
 same scoring semantics:
 
 1. build an index once;
@@ -19,10 +19,9 @@ same scoring semantics:
    cluster count 2-4x the corpus's real cluster count (the
    provisioning rule in build_cells's docstring).
 
-Measured on chip (benchmarks/pruned_scale10m.py, 10M x 128): the
-streaming kernel pays the HBM corpus read (~10 ms at any batch size);
-the screen serves B=16 at 6.7 ms with every row certified — and the
-gap grows with N because the gather is N-independent.
+A full scan pays the whole corpus read at any batch size; the screen's
+gather is N-independent, so the gap grows with N (PERF.md has the
+measured times).
 
 Run on CPU:
   python -c "import jax; jax.config.update('jax_platforms','cpu'); \
@@ -78,8 +77,8 @@ def main() -> None:
                 if list(ip[b]) == list(np.asarray(io)[b]))
     print(f"session vs full search: {agree}/16 identical id lists "
           f"(flagged rows fall back to the full scan, so agreement "
-          f"is by construction; on TPU the two APIs' λ-preps can "
-          f"permute f32 near-ties — see docs/SERVING.md)")
+          f"is by construction; f32 near-ties may permute between "
+          f"the two APIs — see docs/SERVING.md)")
 
     # adversarial traffic: bounds go vacuous on uniform data — the
     # session FLAGS and serves through the fallback, never wrong

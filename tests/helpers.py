@@ -1,6 +1,6 @@
 """Brute-force NumPy oracles (analogue of the reference's
 tests/test_helpers.rs:11-169 O(n²) adjacency builder) used to validate the
-JAX/TPU fast paths."""
+JAX fast paths."""
 
 from __future__ import annotations
 

@@ -267,36 +267,6 @@ def test_hierarchical_2d_topk_matches_single_device():
     np.testing.assert_array_equal(np.asarray(i_2d), np.asarray(i_single))
 
 
-def test_distributed_topk_pallas_per_shard(mesh):
-    """Pallas streaming top-k inside shard_map (interpret mode on CPU)."""
-    items, lap = _setup(n=256)
-    items = items.astype(jnp.float32)
-    lambdas = compute_taumode_lambdas(items, lap.astype(jnp.float32),
-                                      TauMode.median())
-    queries = items[:4] * 1.01
-    q_lam = compute_taumode_lambdas(queries, lap.astype(jnp.float32),
-                                    TauMode.median())
-    s_ref, i_ref = distributed_lambda_aware_topk(
-        queries, q_lam, items, lambdas, 0.8, 10, mesh)
-    s_pal, i_pal = distributed_lambda_aware_topk(
-        queries, q_lam, items, lambdas, 0.8, 10, mesh, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(s_pal), np.asarray(s_ref),
-                               rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i_pal), np.asarray(i_ref))
-
-
-def test_sharded_fused_taulambda_matches_single_device(mesh):
-    """Fused tau+lambda pallas kernel inside shard_map (interpret on CPU)."""
-    items, lap = _setup()
-    items32 = items.astype(jnp.float32)
-    lap32 = lap.astype(jnp.float32)
-    single = compute_taumode_lambdas(items32, lap32, TauMode.median())
-    sharded = sharded_compute_taumode_lambdas(
-        items32, lap32, TauMode.median(), mesh, use_pallas=True)
-    np.testing.assert_allclose(np.asarray(sharded), np.asarray(single),
-                               rtol=2e-5, atol=1e-7)
-
-
 def test_streamed_matches_in_memory():
     """Out-of-core streaming (chunked) must equal the in-memory paths."""
     from arrowspace_tpu.ops.streaming import (streamed_lambda_topk,
@@ -369,7 +339,7 @@ def test_sharded_clustering_invariants(mesh):
 def test_distributed_build_step_end_to_end(mesh):
     """Sharded build -> query: clustering over the mesh feeds the
     replicated graph build, sharded λτ, and the distributed top-k — the
-    full multi-chip path (SURVEY §2 TPU-mapping, build-tile sharding)."""
+    full multi-chip path (SURVEY §2, build-tile sharding)."""
     from arrowspace_tpu.builder import ArrowSpaceBuilder
     from arrowspace_tpu.parallel import distributed_build_step
 
@@ -428,199 +398,6 @@ def test_sharded_clustering_tail_round(mesh):
     assert np.all(chosen <= 0.3 * 1.5 + 1e-9)
 
 
-def test_distributed_binned_matches_xla(mesh):
-    """Per-shard binned kernel + all_gather merge must match the XLA
-    distributed path exactly on collision-free data, with zero flags."""
-    from arrowspace_tpu.parallel.distributed import (
-        distributed_lambda_aware_topk)
-
-    rng = np.random.default_rng(3)
-    n, f, b, k = 8 * 512, 16, 4, 6
-    items = jnp.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    lambdas = jnp.asarray(rng.uniform(0, 1, n))
-    q = jnp.asarray(rng.uniform(0.1, 1.0, (b, f)))
-    qlam = jnp.asarray(rng.uniform(0, 1, b))
-
-    s_x, i_x = distributed_lambda_aware_topk(
-        q, qlam, items, lambdas, 0.8, k, mesh, kernel="xla")
-    s_b, i_b, fl = distributed_lambda_aware_topk(
-        q, qlam, items, lambdas, 0.8, k, mesh, kernel="binned", tile=256)
-    assert np.asarray(fl).sum() == 0
-    np.testing.assert_array_equal(np.asarray(i_b), np.asarray(i_x))
-    np.testing.assert_allclose(np.asarray(s_b), np.asarray(s_x),
-                               rtol=1e-6)
-
-
-def test_distributed_binned_flags_shard_collision(mesh):
-    """>depth same-bin duplicates inside ONE shard must surface in the
-    merged flags (pmax across shards)."""
-    from arrowspace_tpu.ops.pallas_bintopk import binned_topk_depth_for
-    from arrowspace_tpu.parallel.distributed import (
-        distributed_lambda_aware_topk)
-
-    rng = np.random.default_rng(5)
-    tile, shard_n, f, k = 256, 2048, 16, 6
-    n = 8 * shard_n
-    items = np.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    q = np.asarray(rng.uniform(0.1, 1.0, (2, f)))
-    depth = binned_topk_depth_for(k)
-    # same bin (lane 37) of shard 3, > depth copies of query 0
-    base = 3 * shard_n
-    for j in range(depth + 2):
-        items[base + j * tile + 37] = q[0]
-    lambdas = jnp.asarray(np.full(n, 0.5))
-    qlam = jnp.asarray([0.5, 0.5])
-
-    s, i, fl = distributed_lambda_aware_topk(
-        jnp.asarray(q), qlam, jnp.asarray(items), lambdas, 1.0, k, mesh,
-        kernel="binned", tile=tile)
-    fl = np.asarray(fl)
-    assert fl[0] == 1, "shard collision must flag the query"
-    # repair path: the exact distributed result restores all duplicates
-    s_x, i_x = distributed_lambda_aware_topk(
-        jnp.asarray(q), qlam, jnp.asarray(items), lambdas, 1.0, k, mesh,
-        kernel="xla")
-    expect = [base + j * tile + 37 for j in range(depth + 2)][:k]
-    assert list(np.asarray(i_x)[0][:len(expect)]) == expect
-
-
-def test_distributed_session_binned_parity_and_repair_wiring(mesh):
-    """A binned-kernel mesh session must match the XLA session on
-    collision-free data, and the driver must route flagged rows through
-    the session's repair callback (wiring pinned by injecting a flag)."""
-    from arrowspace_tpu.parallel.distributed import (
-        DistributedSearchSession)
-
-    rng = np.random.default_rng(7)
-    n, f, b = 8 * 1024, 16, 4
-    items = jnp.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    lambdas = jnp.asarray(rng.uniform(0, 1, n))
-    _, lap = _setup(64, f, seed=2)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-    batches = [np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-               for _ in range(3)]
-
-    ref = DistributedSearchSession(items, lambdas, lap, mesh, b, k=5,
-                                   kernel="xla")
-    bn = DistributedSearchSession(items, lambdas, lap, mesh, b, k=5,
-                                  kernel="binned")
-    assert bn._repair is not None
-    for (s_r, i_r), (s_b, i_b) in zip(ref.search_stream(batches),
-                                      bn.search_stream(batches)):
-        np.testing.assert_array_equal(i_b, i_r)
-        np.testing.assert_allclose(s_b, s_r, rtol=1e-6)
-
-    # flag-injection: wrap the step to mark row 0 flagged; the driver
-    # must call repair (the injected row has NO fired det bin, so the
-    # strided repair's pure current-top-k rescore path runs), whose
-    # exact result equals the XLA row
-    orig_step = bn._step
-
-    def step_with_flag(q):
-        s, ii, qlam, det = orig_step(q)
-        ii = jnp.asarray(np.asarray(ii))
-        ii = ii.at[0, -1].set(1)
-        return s, ii, qlam, det
-
-    bn._step = step_with_flag
-    out = list(bn.search_stream(batches[:1]))
-    (s_out, i_out), = out
-    s_ref, i_ref = next(iter(ref.search_stream(batches[:1])))
-    np.testing.assert_array_equal(i_out, i_ref)
-
-
-@pytest.mark.parametrize("alpha", [1.0, 0.8])
-def test_distributed_session_strided_repair_restores_exactness(mesh,
-                                                               alpha):
-    """A >depth same-bin duplicate storm inside ONE shard must flag, and
-    the session's STRIDED repair (fired (shard, bin) slice + current
-    top-k rescored against the sharded corpus) must restore the exact
-    XLA-session result end-to-end through the stream driver.  alpha<1
-    exercises the λ term of the repair score in the f64 oracle config
-    (λ/alpha must not be truncated to f32 on the way in)."""
-    from arrowspace_tpu.ops.pallas_bintopk import (binned_topk_depth_for,
-                                                   binned_layout)
-    from arrowspace_tpu.parallel.distributed import (
-        DistributedSearchSession)
-
-    rng = np.random.default_rng(11)
-    shard_n, f, b, k = 8192, 16, 4, 6
-    n = 8 * shard_n
-    depth = binned_topk_depth_for(k)
-    items = np.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    q0 = np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-    # the session resolves the kernel layout per shard — place >depth
-    # copies of query 0 in ONE local bin of shard 3
-    _, tile, lane_split, _, _ = binned_layout(b, shard_n, f, k)
-    bins = tile // lane_split
-    base = 3 * shard_n
-    dup_rows = [base + 5 + j * bins for j in range(depth + 2)
-                if 5 + j * bins < shard_n]
-    assert len(dup_rows) > depth, (dup_rows, bins, shard_n)
-    for g in dup_rows:
-        items[g] = q0[0]
-    lambdas = jnp.asarray(np.full(n, 0.5))
-    _, lap = _setup(64, f, seed=3)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-
-    ref = DistributedSearchSession(jnp.asarray(items), lambdas, lap,
-                                   mesh, b, k=k, alpha=alpha,
-                                   kernel="xla")
-    bn = DistributedSearchSession(jnp.asarray(items), lambdas, lap,
-                                  mesh, b, k=k, alpha=alpha,
-                                  kernel="binned")
-    repair_calls = []
-    inner = bn._repair
-
-    def spy(q_block, qlam, rows, **kw):
-        repair_calls.append((rows.copy(), kw.get("det_rows")))
-        return inner(q_block, qlam, rows, **kw)
-
-    bn._repair = spy
-    (s_b, i_b), = list(bn.search_stream([q0]))
-    (s_r, i_r), = list(ref.search_stream([q0]))
-    assert repair_calls and 0 in repair_calls[0][0], \
-        "the duplicate storm must flag query 0 into the repair path"
-    assert repair_calls[0][1] is not None, \
-        "the driver must hand the repair the gathered det plane rows"
-    np.testing.assert_array_equal(i_b, i_r)
-    np.testing.assert_allclose(s_b, s_r, rtol=1e-6)
-    # the duplicates all come back, lowest global index first
-    assert list(i_r[0][:len(dup_rows)]) == dup_rows
-
-
-def test_distributed_session_prepared_corpus_matches_raw(mesh):
-    """The per-shard prepared corpus (normalise + bucket-pad hoisted to
-    session construction, the multi-chip analogue of
-    prepare_binned_corpus) must be bitwise-identical to the raw per-
-    dispatch path."""
-    from arrowspace_tpu.parallel.distributed import (
-        DistributedSearchSession)
-
-    rng = np.random.default_rng(13)
-    n, f, b = 8 * 1024, 16, 4
-    items = jnp.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    lambdas = jnp.asarray(rng.uniform(0, 1, n))
-    _, lap = _setup(64, f, seed=5)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-    batches = [np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-               for _ in range(2)]
-
-    prep = DistributedSearchSession(items, lambdas, lap, mesh, b, k=5,
-                                    kernel="binned")
-    raw = DistributedSearchSession(items, lambdas, lap, mesh, b, k=5,
-                                   kernel="binned", prepare_corpus=False)
-    for (s_p, i_p), (s_r, i_r) in zip(prep.search_stream(batches),
-                                      raw.search_stream(batches)):
-        np.testing.assert_array_equal(i_p, i_r)
-        np.testing.assert_array_equal(s_p, s_r)
-
-
-# ---------------------------------------------------------------------------
-# DistributedEnergySearchSession — the mesh ENERGY serving session
-# (energymaps.rs:368-407 semantics over the sharded z-plane)
-# ---------------------------------------------------------------------------
-
 @pytest.fixture(scope="module")
 def energy_index_800():
     from arrowspace_tpu.builder import ArrowSpaceBuilder
@@ -676,120 +453,6 @@ def test_distributed_energy_weight_sweep(mesh, energy_index_800):
         np.testing.assert_allclose(s, np.asarray(s_ref), rtol=1e-9)
 
 
-def test_distributed_energy_binned_matches_chunked(mesh):
-    """The per-shard BINNED energy kernel session equals the exact
-    chunked-scorer session on storm-free data (end to end through the
-    stream driver)."""
-    from arrowspace_tpu.parallel import DistributedEnergySearchSession
-    from arrowspace_tpu.taumode import TauMode
-
-    rng = np.random.default_rng(23)
-    n, f, b, k = 8 * 1024, 16, 4, 5
-    items = jnp.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    lambdas = jnp.asarray(rng.uniform(0, 1, n))
-    _, lap = _setup(64, f, seed=5)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-    batches = [np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-               for _ in range(2)]
-
-    ref = DistributedEnergySearchSession(items, lambdas, lap, mesh, b,
-                                         k=k, kernel="chunked",
-                                         taumode=TauMode.median())
-    bn = DistributedEnergySearchSession(items, lambdas, lap, mesh, b,
-                                        k=k, kernel="binned",
-                                        taumode=TauMode.median())
-    assert bn._repair is not None and ref._repair is None
-    for (s_b, i_b), (s_r, i_r) in zip(bn.search_stream(batches),
-                                      ref.search_stream(batches)):
-        np.testing.assert_array_equal(i_b, i_r)
-        np.testing.assert_allclose(s_b, s_r, rtol=1e-5)
-
-
-def test_distributed_energy_prepared_corpus_matches_raw(mesh):
-    """The per-shard prepared z corpus (pad + ||z||² hoisted to
-    construction) must be bitwise-identical to the raw path."""
-    from arrowspace_tpu.parallel import DistributedEnergySearchSession
-    from arrowspace_tpu.taumode import TauMode
-
-    rng = np.random.default_rng(29)
-    n, f, b = 8 * 1024, 16, 4
-    items = jnp.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    lambdas = jnp.asarray(rng.uniform(0, 1, n))
-    _, lap = _setup(64, f, seed=5)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-    batches = [np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-               for _ in range(2)]
-
-    prep = DistributedEnergySearchSession(items, lambdas, lap, mesh, b,
-                                          k=5, kernel="binned",
-                                          taumode=TauMode.median())
-    raw = DistributedEnergySearchSession(items, lambdas, lap, mesh, b,
-                                         k=5, kernel="binned",
-                                         prepare_corpus=False,
-                                         taumode=TauMode.median())
-    for (s_p, i_p), (s_r, i_r) in zip(prep.search_stream(batches),
-                                      raw.search_stream(batches)):
-        np.testing.assert_array_equal(i_p, i_r)
-        np.testing.assert_array_equal(s_p, s_r)
-
-
-def test_distributed_energy_strided_repair_restores_exactness(mesh):
-    """A >depth duplicate storm inside ONE shard's bin must flag, and the
-    mesh strided ENERGY repair (fired (shard, local-bin) slices rescored
-    against the sharded z corpus) must restore the exact chunked-session
-    result end-to-end through the stream driver."""
-    from arrowspace_tpu.ops.pallas_bintopk import (binned_energy_layout,
-                                                   binned_topk_depth_for)
-    from arrowspace_tpu.parallel import DistributedEnergySearchSession
-    from arrowspace_tpu.taumode import TauMode
-
-    rng = np.random.default_rng(31)
-    shard_n, f, b, k = 8192, 16, 4, 6
-    n = 8 * shard_n
-    depth = binned_topk_depth_for(k)
-    items = np.asarray(rng.uniform(0.1, 1.0, (n, f)))
-    q0 = np.asarray(rng.uniform(0.1, 1.0, (b, f)))
-    # duplicates of query 0 (z == items here: no projection/signals, so
-    # d² = 0 ties them at the top) in ONE local bin of shard 3
-    _, tile, lane_split, _, _ = binned_energy_layout(b, shard_n, f, k)
-    bins = tile // lane_split
-    base = 3 * shard_n
-    dup_rows = [base + 5 + j * bins for j in range(depth + 2)
-                if 5 + j * bins < shard_n]
-    assert len(dup_rows) > depth, (dup_rows, bins, shard_n)
-    for g in dup_rows:
-        items[g] = q0[0]
-    lambdas = jnp.asarray(np.full(n, 0.5))
-    _, lap = _setup(64, f, seed=3)
-    lap = jnp.asarray(np.asarray(lap)[:f, :f])
-
-    ref = DistributedEnergySearchSession(jnp.asarray(items), lambdas,
-                                         lap, mesh, b, k=k,
-                                         kernel="chunked",
-                                         taumode=TauMode.median())
-    bn = DistributedEnergySearchSession(jnp.asarray(items), lambdas,
-                                        lap, mesh, b, k=k,
-                                        kernel="binned",
-                                        taumode=TauMode.median())
-    repair_calls = []
-    inner = bn._repair
-
-    def spy(q_block, qlam, rows, **kw):
-        repair_calls.append((rows.copy(), kw.get("det_rows")))
-        return inner(q_block, qlam, rows, **kw)
-
-    bn._repair = spy
-    (s_b, i_b), = list(bn.search_stream([q0]))
-    (s_r, i_r), = list(ref.search_stream([q0]))
-    assert repair_calls and 0 in repair_calls[0][0], \
-        "the duplicate storm must flag query 0 into the repair path"
-    assert repair_calls[0][1] is not None, \
-        "the driver must hand the repair the gathered det plane rows"
-    np.testing.assert_array_equal(i_b, i_r)
-    np.testing.assert_allclose(s_b, s_r, rtol=1e-6)
-    assert list(i_r[0][:len(dup_rows)]) == dup_rows
-
-
 def test_distributed_energy_session_projected_index(mesh):
     """from_index over a dims-reduced ENERGY index: queries must project
     inside the step (λ prep AND z-plane in reduced space) and match the
@@ -821,3 +484,136 @@ def test_distributed_energy_session_projected_index(mesh):
     s_ref, i_ref = idx.search_energy(q, k=7)
     np.testing.assert_array_equal(i, np.asarray(i_ref))
     np.testing.assert_allclose(s, np.asarray(s_ref), rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The per-shard XLA step (ops.search.lambda_topk) + all_gather merge
+# against the f64 oracle
+# ---------------------------------------------------------------------------
+
+def _oracle_topk(q, qlam, x, lam, alpha, k):
+    def unit(a):
+        n = np.linalg.norm(a, axis=1, keepdims=True)
+        return np.where(n > 0, a / np.where(n > 0, n, 1.0), 0.0)
+    cos = unit(np.asarray(q)) @ unit(np.asarray(x)).T
+    dl = np.abs(np.asarray(qlam)[:, None] - np.asarray(lam)[None, :])
+    s = alpha * cos + (1.0 - alpha) * (1.0 - np.minimum(dl, 1.0))
+    idx = np.arange(s.shape[1])
+    order = np.stack([np.lexsort((idx, -row))[:k] for row in s])
+    return np.take_along_axis(s, order, axis=1), order
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 128])
+def test_distributed_topk_matches_f64_oracle(mesh, k):
+    rng = np.random.default_rng(k)
+    n, f = 8 * 256, 16
+    x = rng.normal(size=(n, f))
+    lam = rng.uniform(0, 1, n)
+    q = rng.normal(size=(5, f))
+    qlam = rng.uniform(0, 1, 5)
+    s, i = distributed_lambda_aware_topk(
+        jnp.asarray(q), jnp.asarray(qlam), jnp.asarray(x),
+        jnp.asarray(lam), 0.8, k, mesh)
+    s_o, i_o = _oracle_topk(q, qlam, x, lam, 0.8, k)
+    np.testing.assert_array_equal(np.asarray(i), i_o)
+    np.testing.assert_allclose(np.asarray(s), s_o, rtol=1e-12)
+
+
+@pytest.mark.parametrize("rows", [
+    [700, 705, 711, 760],           # all inside shard 2 (256-row shards)
+    [3, 300, 1100, 2047]])          # one per shard, across the mesh
+def test_distributed_duplicates_lowest_global_index(mesh, rows):
+    """Exact copies of the query direction, within one shard or spread
+    over shards, come back lowest GLOBAL index first."""
+    rng = np.random.default_rng(1)
+    n, f = 8 * 256, 16
+    x = rng.uniform(0.1, 1.0, (n, f))
+    q = rng.uniform(0.1, 1.0, (2, f))
+    for g in rows:
+        x[g] = q[0] * 2.0
+    lam = np.full(n, 0.5)
+    s, i = distributed_lambda_aware_topk(
+        jnp.asarray(q), jnp.asarray([0.5, 0.5]), jnp.asarray(x),
+        jnp.asarray(lam), 1.0, 6, mesh)
+    assert list(np.asarray(i)[0][:len(rows)]) == sorted(rows)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.8])
+def test_distributed_session_duplicate_storm(mesh, alpha):
+    """A duplicate storm inside ONE shard through the mesh session: the
+    result equals the single-device step on the same operands and the
+    duplicates all come back, lowest global index first."""
+    from arrowspace_tpu.parallel.distributed import (
+        DistributedSearchSession)
+
+    rng = np.random.default_rng(11)
+    shard_n, f, b, k = 1024, 16, 4, 6
+    n = 8 * shard_n
+    items = np.asarray(rng.uniform(0.1, 1.0, (n, f)))
+    q0 = np.asarray(rng.uniform(0.1, 1.0, (b, f)))
+    dup_rows = [3 * shard_n + 5 + 37 * j for j in range(8)]
+    for g in dup_rows:
+        items[g] = q0[0]
+    lambdas = np.full(n, 0.5)
+    _, lap = _setup(64, f, seed=3)
+    lap = jnp.asarray(np.asarray(lap)[:f, :f])
+
+    sess = DistributedSearchSession(jnp.asarray(items),
+                                    jnp.asarray(lambdas), lap, mesh, b,
+                                    k=k, alpha=alpha)
+    (s, i), = list(sess.search_stream([q0]))
+    qlam = synthetic_qlam(q0, lap)
+    s_1, i_1 = batched_lambda_aware_topk(
+        jnp.asarray(q0), qlam, jnp.asarray(items), jnp.asarray(lambdas),
+        jnp.asarray(alpha), k=k)
+    np.testing.assert_array_equal(i, np.asarray(i_1))
+    np.testing.assert_allclose(s, np.asarray(s_1), rtol=1e-12)
+    assert list(i[0]) == dup_rows[:k]
+
+
+def synthetic_qlam(q, lap):
+    from arrowspace_tpu.taumode import select_tau_batch, synthetic_lambda_batch
+    qd = jnp.asarray(q)
+    return synthetic_lambda_batch(qd, lap,
+                                  select_tau_batch(qd, TauMode.median()))
+
+
+def test_distributed_energy_duplicate_storm(mesh):
+    """Energy mesh session: copies of the query inside one shard (d² = 0)
+    come back lowest global index first, matching the single-device
+    energy step."""
+    from arrowspace_tpu.energymaps import _energy_score_topk_chunked
+    from arrowspace_tpu.parallel import DistributedEnergySearchSession
+
+    rng = np.random.default_rng(31)
+    shard_n, f, b, k = 1024, 16, 4, 6
+    n = 8 * shard_n
+    items = np.asarray(rng.uniform(0.1, 1.0, (n, f)))
+    q0 = np.asarray(rng.uniform(0.1, 1.0, (b, f)))
+    dup_rows = [5 * shard_n + 9 + 41 * j for j in range(8)]
+    for g in dup_rows:
+        items[g] = q0[0]
+    lambdas = np.full(n, 0.5)
+    _, lap = _setup(64, f, seed=3)
+    lap = jnp.asarray(np.asarray(lap)[:f, :f])
+    sess = DistributedEnergySearchSession(
+        jnp.asarray(items), jnp.asarray(lambdas), lap, mesh, b, k=k,
+        taumode=TauMode.median())
+    (s, i), = list(sess.search_stream([q0]))
+    qlam = synthetic_qlam(q0, lap)
+    s_1, i_1 = _energy_score_topk_chunked(
+        jnp.asarray(q0), qlam, jnp.asarray(items), jnp.asarray(lambdas),
+        jnp.asarray(1.0), jnp.asarray(0.5), k=k)
+    np.testing.assert_array_equal(i, np.asarray(i_1))
+    assert list(i[0]) == dup_rows[:k]
+
+
+@pytest.mark.parametrize("mode", [TauMode.median(), TauMode.mean(),
+                                  TauMode.fixed(0.3),
+                                  TauMode.percentile(0.25)])
+def test_sharded_lambdas_every_taumode(mesh, mode):
+    items, lap = _setup()
+    single = compute_taumode_lambdas(items, lap, mode)
+    sharded = sharded_compute_taumode_lambdas(items, lap, mode, mesh)
+    np.testing.assert_allclose(np.asarray(sharded), np.asarray(single),
+                               rtol=1e-12)

@@ -366,48 +366,3 @@ def test_search_energy_batch_streams_large_corpus(monkeypatch):
         for (j, s), s2 in zip(single, scores[i]):
             assert s == pytest.approx(float(s2), rel=1e-7)
 
-
-def test_search_energy_batch_binned_dispatch(monkeypatch):
-    """With the TPU gate forced open, search_energy_batch must route
-    through the Mosaic bin-accumulator kernel (run here in interpret
-    mode) and agree with the chunked path, including the flagged-row
-    repair contract."""
-    import functools
-
-    import arrowspace_tpu.energymaps as em_mod
-    import arrowspace_tpu.ops.pallas_bintopk as bk
-    from arrowspace_tpu.energymaps import search_energy_batch
-
-    rows = make_gaussian_hd(120, spread=0.5, dims=96, seed=21)
-    b = _builder(seed=5)
-    aspace, gl = en.build_energy(b, rows.tolist(), EnergyParams())
-
-    monkeypatch.setattr(em_mod, "ENERGY_CHUNK", 32)
-    monkeypatch.setattr(em_mod, "_use_binned_energy",
-                        lambda n, k, g: True)
-    calls = {"n": 0}
-    orig = bk.binned_energy_topk
-
-    def interp_kernel(*args, **kw):
-        calls["n"] += 1
-        kw["interpret"] = True
-        kw["tile"] = 32
-        kw["block_b"] = 4
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(bk, "binned_energy_topk", interp_kernel)
-
-    queries = rows[:3] * 1.01
-    scores, ids = search_energy_batch(aspace, queries, gl, 8, 1.0, 0.5)
-    # >= 1: the kernel's own block-padding path re-enters through the
-    # module-level name, so the patched wrapper can fire more than once
-    assert calls["n"] >= 1, "gate must dispatch the binned kernel"
-    for i, q in enumerate(queries):
-        single = en.search_energy(aspace, q, gl, 8, 1.0, 0.5)
-        assert [j for j, _ in single] == list(ids[i])
-        for (j, s), s2 in zip(single, scores[i]):
-            # the Mosaic kernel scores in f32 (its TPU dtype) while the
-            # CPU single-query oracle runs f64 — ids exact, scores to
-            # f32 rounding; kernel ≡ chunked at equal precision is
-            # pinned bitwise in tests/test_pallas_kernels.py
-            assert s == pytest.approx(float(s2), rel=1e-3)

@@ -155,20 +155,26 @@ def test_search_session_dim_mismatch_raises():
 
 
 def test_search_session_bf16_precision_option():
-    """precision="bf16" is a TPU Pallas-kernel feature; off the TPU the
-    session must fall back to the exact f32 path (identical results), and
-    an unknown precision must be rejected."""
+    """precision="bf16" scores with bf16 operands and f32 accumulation on
+    every backend: scores track the f32 session to bf16 rounding, the
+    self-match stays first, the one-shot API gives the session's
+    result, and an unknown precision must be rejected."""
     rows, idx = _index()
     rng = np.random.default_rng(6)
-    batches = [rows[rng.integers(0, 80, 4)] * 1.02 for _ in range(3)]
+    picks = [rng.integers(0, 80, 4) for _ in range(3)]
+    batches = [rows[p] * 1.02 for p in picks]
 
     ref = idx.make_search_session(batch_size=4, k=5, alpha=0.9)
     bf = idx.make_search_session(batch_size=4, k=5, alpha=0.9,
                                  precision="bf16")
-    for (s_r, i_r), (s_b, i_b) in zip(ref.search_stream(batches),
-                                      bf.search_stream(batches)):
-        np.testing.assert_array_equal(i_r, i_b)
-        np.testing.assert_allclose(s_r, s_b, rtol=1e-9)
+    for p, qb, (s_r, i_r), (s_b, i_b) in zip(
+            picks, batches, ref.search_stream(batches),
+            bf.search_stream(batches)):
+        np.testing.assert_array_equal(i_b[:, 0], p)
+        np.testing.assert_allclose(s_b, s_r, atol=2e-2)
+        s_1, i_1 = idx.search(qb, k=5, alpha=0.9, precision="bf16")
+        np.testing.assert_array_equal(i_1, i_b)
+        np.testing.assert_allclose(s_1, s_b, rtol=1e-12)
 
     with pytest.raises(ValueError):
         idx.make_search_session(batch_size=4, k=5, precision="fp8")
@@ -229,46 +235,6 @@ def test_search_session_tall_graph_index():
     np.testing.assert_array_equal(i, i_ref)
 
 
-def test_stream_driver_repairs_flagged_rows():
-    """The stream driver must route binned-kernel flags through the
-    session repair callback: rows flagged by the step get replaced by
-    the repair result, unflagged rows pass through untouched (the
-    backend gate means CPU sessions never pick the binned kernel, so
-    the driver contract is pinned with a stub step)."""
-    import jax.numpy as jnp
-    from arrowspace_tpu.index import stream_search
-
-    bsz, k = 4, 3
-
-    def step(q):
-        s = jnp.tile(jnp.arange(k, 0, -1, dtype=jnp.float32), (bsz, 1))
-        i = jnp.tile(jnp.arange(k, dtype=jnp.int32), (bsz, 1))
-        fl = jnp.asarray([0, 1, 0, 1], dtype=jnp.int32)
-        qlam = jnp.full((bsz,), 0.25, dtype=jnp.float32)
-        return s, jnp.concatenate([i, fl[:, None]], axis=1), qlam
-
-    calls = []
-
-    def repair(q_block, qlam, rows):
-        calls.append((rows.copy(), qlam.copy()))
-        return (np.full((len(rows), k), 9.0, np.float32),
-                np.full((len(rows), k), 77, np.int32))
-
-    batches = [np.ones((bsz, 8)), np.ones((2, 8))]  # partial tail batch
-    out = list(stream_search(step, batches, bsz, 1, np.float32,
-                             repair=repair))
-    assert len(out) == 2
-    s0, i0 = out[0]
-    np.testing.assert_array_equal(calls[0][0], [1, 3])
-    np.testing.assert_allclose(calls[0][1], 0.25)
-    assert (i0[1] == 77).all() and (i0[3] == 77).all()
-    assert (i0[0] == [0, 1, 2]).all() and (i0[2] == [0, 1, 2]).all()
-    # tail: flags sliced to the 2 real rows -> only row 1 repaired
-    s1, i1 = out[1]
-    assert s1.shape == (2, 3)
-    np.testing.assert_array_equal(calls[1][0], [1])
-
-
 def test_stream_driver_host_casts_batches():
     """The driver casts batches to the session dtype on the HOST: the
     step must receive dt arrays (an f64 batch would otherwise cross
@@ -295,35 +261,22 @@ def test_stream_driver_host_casts_batches():
 
 
 def test_warm_step_compiles_production_driver_path():
-    """warm_step must push one batch through the production stream
-    driver (not just probe the step): the step sees a full driver-cast
-    batch, and the repair sweep runs the flag-count buckets."""
+    """warm_step must push one full batch through the production stream
+    driver (not just probe the step): the step sees exactly one
+    driver-cast batch of the session's shape and dtype."""
     import jax.numpy as jnp
     from arrowspace_tpu.index import warm_step
 
     bsz, dim, k = 4, 8, 3
-    step_calls, repair_calls = [], []
+    step_calls = []
 
     def step(q):
-        step_calls.append(np.asarray(q).dtype)
-        s = jnp.zeros((bsz, k), jnp.float32)
-        ii = jnp.zeros((bsz, k + 1), jnp.int32)
-        qlam = jnp.zeros((bsz,), jnp.float32)
-        det = jnp.full((bsz, 16), -1.0, jnp.float32)
-        return s, ii, qlam, det
+        step_calls.append((np.asarray(q).dtype, q.shape))
+        return (jnp.zeros((bsz, k), jnp.float32),
+                jnp.zeros((bsz, k), jnp.int32))
 
-    def repair(q_block, qlam, rows, scores=None, ids=None,
-               det_rows=None):
-        repair_calls.append(len(rows))
-        return (np.zeros((len(rows), k), np.float32),
-                np.zeros((len(rows), k), np.int32))
-
-    warm_step(step, bsz, dim, jnp.float32, repair=repair, k=k)
-    # one production-driver pass + the det-shape probe
-    assert len(step_calls) >= 2
-    assert all(d == np.float32 for d in step_calls)
-    # the flag-count sweep clamps each bucket to the batch size
-    assert repair_calls == [1, 2, 4, 4, 4]
+    warm_step(step, bsz, dim, jnp.float32)
+    assert step_calls == [(np.float32, (bsz, dim))]
 
 
 def test_f64_rescore_pool_parameter():

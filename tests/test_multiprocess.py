@@ -11,7 +11,7 @@ skip.
 Reference anchor: the merge semantics distributed here are the
 reference's per-thread-heap fold (core.rs:865-888); the reference
 itself has no multi-process runtime (SURVEY.md §2) — this layer exists
-for the BASELINE 100M×768/v5p-16 multi-host config.
+for the BASELINE 100M×768 multi-host config.
 """
 
 import numpy as np
@@ -68,7 +68,6 @@ def test_two_process_build_query_serve():
     assert r["global_devices"] == 8
     assert r["self_match"] == "16/16"
     assert r["session_self_match"] == "16/16"
-    assert r["binned_self_match"] == "16/16"
     assert r["hierarchical_topk_equal"] is True
     # per-host ingestion: process 0 loaded only the first half
     assert r["local_rows"] == [0, 16384]
@@ -95,7 +94,6 @@ def test_four_process_build_query_serve():
     assert r["global_devices"] == 8
     assert r["self_match"] == "16/16"
     assert r["session_self_match"] == "16/16"
-    assert r["binned_self_match"] == "16/16"
     assert r["hierarchical_topk_equal"] is True
     # per-host ingestion: process 0 loaded only the first quarter
     assert r["local_rows"] == [0, 8192]

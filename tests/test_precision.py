@@ -147,13 +147,11 @@ def test_single_query_duplicate_tie_order_cpu():
     """B=1 scoring must give bitwise-equal scores to bitwise-identical
     corpus rows so lax.top_k resolves the tie to the LOWEST index (the
     reference's order for duplicates, pinned by the quora golden).  On
-    CPU this requires the matvec path: _pad_query_rows must be 0 there,
-    because the CPU blocked matmul rounds per-column NON-uniformly (an
-    identical row in a SIMD remainder lane lands 1 ulp apart)."""
-    from arrowspace_tpu.ops.search import (_pad_query_rows,
-                                           _shifted_lambda_plane)
+    CPU this requires the unpadded B=1 dot (a matvec): the CPU blocked
+    matmul rounds per-column NON-uniformly (an identical row in a SIMD
+    remainder lane lands 1 ulp apart)."""
+    from arrowspace_tpu.ops.search import _shifted_lambda_plane
     assert jax.default_backend() == "cpu"
-    assert _pad_query_rows(1) == 0
 
     rng = np.random.default_rng(11)
     items = rng.normal(size=(40, 384))
@@ -170,39 +168,3 @@ def test_single_query_duplicate_tie_order_cpu():
     top2 = np.asarray(jax.lax.top_k(jnp.asarray(s), 2)[1][0])
     np.testing.assert_array_equal(top2, [3, 27])
 
-
-def test_pad_skipped_under_default_device_cpu(monkeypatch):
-    """core.py's small-scan fallback wraps the plane in
-    jax.default_device(cpu) on TPU machines, where
-    jax.default_backend() still reports the accelerator — the pad must
-    key on the device override, not the backend, or it would apply the
-    TPU pad to the CPU blocked matmul (1-ulp per-column nonuniformity,
-    breaking exact-duplicate tie order)."""
-    import arrowspace_tpu.ops.search as so
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert so._pad_query_rows(1) == 15   # no device override: TPU pad
-    cpu = jax.local_devices(backend="cpu")[0]
-    with jax.default_device(cpu):
-        assert so._pad_query_rows(1) == 0
-
-
-def test_forced_query_pad_slices_back(monkeypatch):
-    """The TPU pad branch (forced here) returns the same shape and the
-    same ids as the unpadded plane; score drift stays in rounding."""
-    import arrowspace_tpu.ops.search as so
-
-    rng = np.random.default_rng(13)
-    items = rng.normal(size=(64, 48))
-    lams = rng.uniform(0, 1, 64)
-    q = items[:3] * 1.02
-    args = (jnp.asarray(q), jnp.asarray(lams[:3]), jnp.asarray(items),
-            jnp.asarray(lams), jnp.float64(0.8))
-    s0, c0 = so._shifted_lambda_plane(*args)
-    monkeypatch.setattr(so, "_pad_query_rows", lambda b: max(0, 16 - b))
-    s1, c1 = so._shifted_lambda_plane(*args)
-    assert s1.shape == s0.shape == (3, 64)
-    assert float(c0) == float(c1)
-    np.testing.assert_allclose(np.asarray(s0), np.asarray(s1), rtol=1e-12)
-    np.testing.assert_array_equal(
-        np.asarray(jnp.argsort(-s0, axis=1)[:, :10]),
-        np.asarray(jnp.argsort(-s1, axis=1)[:, :10]))

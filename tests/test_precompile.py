@@ -5,7 +5,7 @@ running the real code paths at the same shapes must add no new cache
 entries for the warmed program names.
 
 (The reference needs no analogue — rustc AOT-compiles arrowspace-rs.
-This suite pins the TPU-era equivalent: deploy-time compile, serve-time
+This suite pins the equivalent here: deploy-time compile, serve-time
 dispatch-only.)
 """
 
@@ -65,16 +65,6 @@ def test_warm_returns_no_failures(cache_dir):
     assert all(v >= 0 for v in t.values()), f"precompile failures: {t}"
 
 
-def test_warm_bf16_skipped_off_tpu(cache_dir):
-    """bf16 sessions are a Pallas/TPU feature; off-TPU warm must warm the
-    f32 step and silently skip the bf16 one."""
-    t = warm(4096, 32, batch_sizes=(8,), k=3, cache_path=cache_dir,
-             precisions=("f32", "bf16"))
-    assert "session_step_b8_f32" in t
-    assert "session_step_b8_bf16" not in t
-    assert all(v >= 0 for v in t.values()), f"precompile failures: {t}"
-
-
 def test_aot_matches_runtime_build_programs(cache_dir):
     """warm() then the REAL clustering device paths: no new cache entries
     for the warmed program names => identical executables (key match)."""
@@ -117,19 +107,16 @@ def test_aot_matches_runtime_build_programs(cache_dir):
 
 def test_warm_energy_matches_runtime_chunked(cache_dir):
     """warm_energy() then the REAL chunked energy scorer at the same
-    shapes: no new cache entries => identical executable.  (The Mosaic
-    binned kernel is TPU-gated and skipped off-TPU, matching the
-    serving gate energymaps._use_binned_energy.)"""
+    shapes: no new cache entries => identical executable."""
     from arrowspace_tpu.energymaps import _energy_score_topk_chunked
     from arrowspace_tpu.precompile import warm_energy
 
     n, g, b, k = 70_000, 16, 8, 3
     t = warm_energy(n, g, batch_sizes=(b,), k=k, cache_path=cache_dir)
     assert f"energy_chunked_b{b}" in t
-    assert f"energy_binned_b{b}" not in t  # TPU-gated off-CPU
     assert f"energy_session_b{b}" in t  # fused EnergySearchSession step
     assert all(v >= 0 for v in t.values()), f"precompile failures: {t}"
-    before = _entries(cache_dir, ("_energy_score_topk_chunked",))
+    before = _entries(cache_dir, ("energy_topk",))
     assert before, "warm_energy() wrote no chunked-program cache entry"
 
     import jax.numpy as jnp
@@ -142,7 +129,7 @@ def test_warm_energy_matches_runtime_chunked(cache_dir):
     s, i = _energy_score_topk_chunked(zq, qlam, z, lam, w, w, k=k)
     assert np.asarray(s).shape == (b, k) and np.asarray(i).shape == (b, k)
 
-    after = _entries(cache_dir, ("_energy_score_topk_chunked",))
+    after = _entries(cache_dir, ("energy_topk",))
     assert after == before, (
         f"runtime compiled a chunked program the AOT warm missed: "
         f"{after - before}")
@@ -171,3 +158,12 @@ def test_aot_matches_runtime_session_step(cache_dir):
     assert after == before, (
         f"real session compiled a step the AOT warm missed: "
         f"{after - before}")
+
+
+def test_warm_bf16_session_step(cache_dir):
+    """bf16 is a real session precision on every backend: warm compiles
+    a bf16 step beside the f32 one."""
+    t = warm(4096, 32, batch_sizes=(8,), k=3, cache_path=cache_dir,
+             precisions=("f32", "bf16"))
+    assert "session_step_b8_f32" in t and "session_step_b8_bf16" in t
+    assert all(v >= 0 for v in t.values()), f"precompile failures: {t}"

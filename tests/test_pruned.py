@@ -742,3 +742,61 @@ def test_pruned_k_above_32_sort_fallback_matches_oracle():
                              s_cells=cells.cent.shape[0])
     assert not ufl.any()
     np.testing.assert_array_equal(ui, io)
+
+
+def _zero_row_cells(f, cap=8):
+    """Two hand-grouped units: unit 0 = rows along d plus one ZERO row,
+    unit 1 = rows along e with e·d = -0.2; bound metadata from the
+    device build's _meta_block_device."""
+    from arrowspace_tpu.pruned import _meta_block_device
+    d = np.zeros(f)
+    d[0] = 1.0
+    e = np.zeros(f)
+    e[0], e[1] = 0.2, np.sqrt(1 - 0.04)
+    rng = np.random.default_rng(f)
+    a_rows = d + rng.normal(0, 0.01, (cap - 1, f))
+    b_rows = e + rng.normal(0, 0.01, (cap, f))
+    rows = np.concatenate([a_rows, np.zeros((1, f)), b_rows])
+    xhat = np.where(np.linalg.norm(rows, axis=1, keepdims=True) > 0,
+                    rows / np.maximum(np.linalg.norm(rows, axis=1,
+                                                     keepdims=True), 1e-30),
+                    0.0)
+    ids = np.arange(2 * cap, dtype=np.int32)
+    lam = np.full(2 * cap, 0.5)
+    meta = _meta_block_device(jnp.asarray(xhat), jnp.asarray(lam),
+                              jnp.asarray(ids), cap=cap)
+    cent, radius, cosr, sinr, lo, hi = meta
+    cells = PrunedCells(x=jnp.asarray(xhat), lam=jnp.asarray(lam),
+                        ids=jnp.asarray(ids), cent=cent, radius=radius,
+                        cosr=cosr, sinr=sinr, lam_lo=lo, lam_hi=hi,
+                        cap=cap, n_units=2)
+    return rows, xhat, lam, cells, d
+
+
+@pytest.mark.parametrize("f", [8, 24])
+def test_device_meta_cosr_is_min_member_dot(f):
+    """cosr never exceeds the smallest member dot x̂·ĉ — including a
+    zero-norm member, whose dot is 0 (the 1 − d²/2 identity would give
+    0.5 there)."""
+    rows, xhat, lam, cells, d = _zero_row_cells(f)
+    cent = np.asarray(cells.cent)
+    cosr = np.asarray(cells.cosr)
+    for u in range(2):
+        dots = xhat[u * 8:(u + 1) * 8] @ cent[u]
+        assert cosr[u] <= dots.min() + 1e-12, (u, cosr[u], dots.min())
+    assert cosr[0] <= 0.0
+
+
+@pytest.mark.parametrize("f", [8, 24])
+def test_device_cells_zero_row_anti_aligned_query(f):
+    """The anti-aligned query's true top-1 is the zero row (cos 0 beats
+    every negative cosine).  Scanning one unit, the screen must either
+    find it or flag — never certify the other unit's row."""
+    rows, xhat, lam, cells, d = _zero_row_cells(f)
+    q = -d[None, :]
+    s, i, fl = _run_pruned(cells, q, np.array([0.5]), 1.0, 1, m_cells=1)
+    so, io = _oracle(q, np.array([0.5]), rows, lam, 1.0, 1)
+    assert io[0, 0] == 7            # the zero row
+    assert fl[0] or i[0, 0] == io[0, 0], (i, fl)
+    if not fl[0]:
+        np.testing.assert_allclose(s, so, atol=1e-12)

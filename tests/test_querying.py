@@ -231,10 +231,9 @@ def test_hybrid_fused_matches_host_union_oracle():
 
 def test_search_one_delegates_to_batched_engine(monkeypatch):
     """search_lambda_aware must route through search_lambda_aware_batch
-    so BOTH single-query APIs share one engine selection (small-scan
-    gate included): it previously dispatched straight to the device and
-    could disagree with a B=1 batched search on near-ties at sub-gate
-    corpus sizes (measured on chip, r4)."""
+    so BOTH single-query APIs run one engine: it previously dispatched
+    straight to the device and could disagree with a B=1 batched search
+    on near-ties."""
     data = make_moons_hd(60, noise=0.1, hd_noise=0.05, dims=10, seed=13)
     aspace, gl = _build(data)
     q = data[5] * 1.02

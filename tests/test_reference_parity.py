@@ -109,7 +109,7 @@ def test_topk_parity(built, alpha):
 
 
 def test_matmul_vs_direct_on_real_data(built):
-    """The MXU matmul-expanded lambda formulation must agree with the
+    """The matmul-expanded lambda formulation must agree with the
     direct per-item oracle on the real embeddings (quartic moment
     expansion is exact, not approximate)."""
     from arrowspace_tpu.taumode import (select_tau_batch,

@@ -152,8 +152,6 @@ def test_zero_vector_gives_zero_lambda():
     assert np.isfinite(lam[2])
 
 
-
-
 def test_tau_floor_constant():
     """TAU_FLOOR sanity (reference: test_taumode.rs:318-327)."""
     assert TAU_FLOOR > 0.0
@@ -254,32 +252,40 @@ def test_taumode_windowed_matches_single_shot(monkeypatch):
     assert out.shape == (n,)
 
 
-def test_query_prep_precision_plumbing():
-    """QUERY_PREP_PRECISION threads through batch and single λ without
-    changing CPU results (CPU matmuls ignore TPU precision passes, so
-    HIGHEST must be bitwise the default here).  The constant exists so
-    session query-λ prep tracks the host-routed f32 prep on TPU (~2e-3
-    bf16-family gap otherwise, measured r5); corpus-λ callers keep the
-    default family — see taumode.QUERY_PREP_PRECISION."""
-    from arrowspace_tpu.taumode import (QUERY_PREP_PRECISION,
-                                        select_tau_batch,
-                                        synthetic_lambda_batch,
-                                        synthetic_lambda_single)
+
+@pytest.mark.parametrize("mode", [TauMode.median(), TauMode.percentile(0.3),
+                                  TauMode.percentile(1.0), TauMode.mean()])
+def test_select_tau_batch_duplicates_and_signed_zero(mode):
+    """Rows made of repeated values, ±0.0 and non-finite entries: the
+    batched τ (one XLA row sort) equals the scalar reference policy."""
+    x = np.array([
+        [0.0, -0.0, 0.0, -0.0, 1.0, 1.0, 1.0, 2.0],
+        [-0.0, -0.0, -0.0, -0.0, -0.0, -0.0, -0.0, -0.0],
+        [3.0, 3.0, 3.0, 3.0, np.inf, -np.inf, np.nan, 3.0],
+        [0.5, 0.25, 0.5, 0.25, 0.5, 0.25, 0.5, 0.25],
+        [np.nan] * 8,
+    ])
+    batch = np.asarray(select_tau_batch(jnp.asarray(x), mode))
+    for i in range(x.shape[0]):
+        assert batch[i] == pytest.approx(select_tau(x[i], mode), rel=1e-12,
+                                         abs=1e-15)
+
+
+@pytest.mark.parametrize("mode", [TauMode.mean(), TauMode.fixed(0.2),
+                                  TauMode.percentile(0.9)])
+def test_taumode_windowed_matches_single_shot_every_mode(monkeypatch, mode):
+    """The windowed λτ driver equals the single-shot path under every τ
+    policy, clamped tail window included."""
+    import arrowspace_tpu.taumode as tm
 
     rng = np.random.default_rng(5)
-    g = 24
-    items = jnp.asarray(rng.normal(size=(32, g)))
-    a = rng.uniform(0, 1, (g, g))
+    n, f = 33_000, 16          # > the 16k-row window floor -> 3 windows
+    items = jnp.asarray(rng.normal(size=(n, f)))
+    a = rng.uniform(0, 1, (f, f))
     a = np.maximum(a, a.T) * (a > 0.5)
     np.fill_diagonal(a, 0)
     lap = jnp.asarray(np.diag(a.sum(1)) - a)
-    taus = select_tau_batch(items, TauMode.median())
-
-    base = np.asarray(synthetic_lambda_batch(items, lap, taus))
-    high = np.asarray(synthetic_lambda_batch(
-        items, lap, taus, precision=QUERY_PREP_PRECISION))
-    np.testing.assert_array_equal(base, high)
-
-    one = synthetic_lambda_single(items[0], lap, float(taus[0]),
-                                  precision=QUERY_PREP_PRECISION)
-    assert one == synthetic_lambda_single(items[0], lap, float(taus[0]))
+    ref = np.asarray(compute_taumode_lambdas(items, lap, mode))
+    monkeypatch.setattr(tm, "TAUMODE_WINDOW_BYTES", 1)
+    out = np.asarray(tm.compute_taumode_lambdas(items, lap, mode))
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-14)
